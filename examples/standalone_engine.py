@@ -1,6 +1,6 @@
 """tetrisRL-style standalone engine usage (no gym env): construct a
 ``TetrisEngine`` directly, drive it, read its attributes — the reference's
-original interface (tetris_env.py:125-335), backed here by the TPU-native
+original interface (tetris_env.py:125-335), backed here by the batched JAX
 batched engine at B=1.
 
 Run: python examples/standalone_engine.py

@@ -1,4 +1,4 @@
-"""Native batched API: 4096 boards in lockstep, scan-fused rollout on TPU."""
+"""Native batched API: 4096 boards in lockstep, scan-fused rollout on the default device."""
 
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))  # run from anywhere

@@ -1,7 +1,7 @@
-"""gym_simpletetris_tpu — TPU-native vectorized SimpleTetris framework.
+"""gym_simpletetris_tpu — vectorized SimpleTetris on accelerators, in JAX.
 
 A ground-up JAX/XLA re-design of the capabilities of GIJaws/gym-simpletetris
-(reference mounted at /root/reference): the complete SimpleTetris-v0 environment
+(the reference): the complete SimpleTetris-v0 environment
 — 7-piece count-balanced spawning, exact collision/lock-delay/line-clear
 semantics, the full reward-shaping flag matrix, ram/grayscale/rgb(84x84)
 observations — rebuilt as pure jittable array programs over bit-packed batched

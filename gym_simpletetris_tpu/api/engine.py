@@ -11,7 +11,7 @@ directly (not through the gym env):
   arbitrary arrays.
 
 This module provides the same three names with identical observable behavior.
-``TetrisEngine`` is backed by the batched TPU engine at B=1 (every transition
+``TetrisEngine`` is backed by the batched JAX engine at B=1 (every transition
 is the jitted ``core.engine.engine_step``), so its trajectories are bitwise
 those of the vectorized framework; the conversion functions are pure numpy
 over the same precomputed static geometry as the device raster
@@ -89,7 +89,7 @@ def convert_grayscale_rgb(array) -> np.ndarray:
 
 class TetrisEngine:
     """Drop-in standalone engine with the reference ``TetrisEngine`` surface
-    (tetris_env.py:125-335), backed by the batched TPU-native engine at B=1.
+    (tetris_env.py:125-335), backed by the batched JAX engine at B=1.
 
     Constructor signature and defaults match the reference positionally
     (:126-137). Before the first ``clear()`` the engine mirrors the

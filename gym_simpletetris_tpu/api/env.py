@@ -47,17 +47,14 @@ def build_observation_storage(cfg: EnvConfig,
     whatever consumes the observation — a replay-buffer write, a conv stem, or
     the bench accumulator. Producing uint8 and casting at the consumer (rather
     than materializing a float32 image, 4x the bytes, or a channel-tripled rgb
-    tensor, 3x) is what the image-observation HBM budget demands; see
-    BENCH_LOCAL.md.
+    tensor, 3x) keeps the image observation's memory traffic at one byte per
+    pixel.
     """
     if cfg.obs_type == "ram":
         return unpack_board(cfg, emitted_rows, dtype=jnp.uint8)   # [B, W, H]
-    impl = cfg.resolved_raster_impl
-    if impl == "pallas":
-        from ..ops.pallas_raster import rasterize_rows_pallas
-        return rasterize_rows_pallas(cfg, emitted_rows, 84)
     cells = unpack_rows(cfg, emitted_rows, dtype=jnp.uint8)       # [B, H, W]
-    return rasterize(cells, cfg.height, cfg.width, 84, impl=impl)
+    return rasterize(cells, cfg.height, cfg.width, 84,
+                     impl=cfg.resolved_raster_impl)
 
 
 def obs_from_storage(cfg: EnvConfig, storage: jnp.ndarray) -> jnp.ndarray:
@@ -148,16 +145,7 @@ def step_fn(cfg: EnvConfig, state: EnvState, action: jnp.ndarray,
     their observation is the reset observation (empty board); reward/done still
     report the terminal transition.
     """
-    if cfg.step_impl == "pallas":
-        from ..ops.pallas_step import engine_step_pallas
-        b = state.rows.shape[1]
-        # largest lane-aligned tile that divides the batch; small/unaligned
-        # batches fall back to one whole-batch tile
-        bb = next((t for t in (512, 384, 256, 128) if b % t == 0), b)
-        out = engine_step_pallas(cfg, state, action, injected_r=injected_r,
-                                 block_b=bb)
-    else:
-        out = E.engine_step(cfg, state, action, injected_r=injected_r)
+    out = E.engine_step(cfg, state, action, injected_r=injected_r)
     new_state, emitted = out.state, out.emitted_rows
     if cfg.auto_reset:
         new_state, emitted = apply_reset_mask(cfg, new_state, emitted,
@@ -190,15 +178,15 @@ def make_info(state: EnvState) -> dict:
 
 def build_rollout(cfg: EnvConfig, batch_size: int, obs_shape=None,
                   with_obs: bool = True, acc_mode: str = "storage",
-                  unroll: int = 4, fused_acc: bool = False):
+                  unroll: int = 4):
     """Scan-fused multi-step rollout builder shared by the local and sharded
     envs. Returns a function (state, actions[T, B]) ->
     (final_state, obs_acc, reward[T, B], done[T, B]).
 
     ``with_obs=True`` renders the observation every step and folds it into an
     accumulator, keeping the full observation pipeline live under XLA's DCE
-    (an accumulator is loop-in-place friendly; a carry-replace buffer measured
-    pathologically slow in XLA's while-loop handling).
+    (an accumulator is updated in place across loop iterations; a
+    carry-replace buffer would copy every step).
 
     ``acc_mode`` selects what is accumulated:
       "storage"   (default, the deployment shape): the canonical uint8 storage
@@ -206,40 +194,24 @@ def build_rollout(cfg: EnvConfig, batch_size: int, obs_shape=None,
                   stem reads; the delivered-dtype cast / rgb broadcast are
                   fused into the consumer and never hit HBM.
       "delivered": the full delivered observation in cfg.obs_dtype, rgb
-                  channels materialized — the conservative round-1 shape, kept
-                  for measurement honesty (bench.py --acc delivered).
+                  channels materialized (bench.py --acc delivered).
 
     ``with_obs=False`` runs the bare engine. ``obs_shape`` is only used for
     acc_mode="delivered" (defaults to the delivered space shape). ``unroll``
-    is forwarded to ``lax.scan`` (4 measured +22% ram / +8% image throughput
-    on v5e: fewer loop-bookkeeping bubbles between fused step kernels).
-    ``fused_acc`` (image obs + storage acc only) folds the raster INTO the
-    accumulate with one Pallas kernel per step (``ops.pallas_raster.
-    raster_accumulate``) — bitwise the same accumulator, without the
-    [B, size, size] bf16 raster intermediate's HBM round-trip.
+    is forwarded to ``lax.scan`` (several steps per loop iteration, so the
+    loop's own bookkeeping runs less often).
     """
-    if fused_acc and (cfg.obs_type == "ram" or acc_mode != "storage"
-                      or not with_obs):
-        raise ValueError("fused_acc requires image obs + storage acc_mode")
 
     def rollout(s, acts):
         def body(carry, a):
             st, acc = carry
             if acc_mode == "storage":
-                if cfg.step_impl == "pallas":
-                    from ..ops.pallas_step import engine_step_pallas
-                    out = engine_step_pallas(cfg, st, a)
-                else:
-                    out = E.engine_step(cfg, st, a)
+                out = E.engine_step(cfg, st, a)
                 st, emitted = out.state, out.emitted_rows
                 if cfg.auto_reset:
                     st, emitted = apply_reset_mask(cfg, st, emitted, out.done)
                 if with_obs:
-                    if fused_acc:
-                        from ..ops.pallas_raster import raster_accumulate
-                        acc = raster_accumulate(cfg, emitted, acc)
-                    else:
-                        acc = acc + build_observation_storage(cfg, emitted)
+                    acc = acc + build_observation_storage(cfg, emitted)
                 return (st, acc), (out.reward, out.done)
             obs, st, r, d, _ = step_fn(cfg, st, a)
             if with_obs:
@@ -263,7 +235,7 @@ def build_rollout(cfg: EnvConfig, batch_size: int, obs_shape=None,
 
 
 class TetrisVectorEnv:
-    """Batched TPU-native SimpleTetris. All methods are jit-compiled per
+    """Batched device-native SimpleTetris. All methods are jit-compiled per
     (config, batch_size); state is explicit and device-resident.
 
     >>> env = TetrisVectorEnv(EnvConfig(obs_type="ram"), batch_size=4096)
@@ -315,8 +287,7 @@ class TetrisVectorEnv:
         return self._vac(state)
 
     def rollout(self, state: EnvState, actions: jnp.ndarray,
-                with_obs: bool = True, acc_mode: str = "storage",
-                fused_acc: bool = False):
+                with_obs: bool = True, acc_mode: str = "storage"):
         """Scan ``T`` pre-chosen action batches: actions int32[T, B].
 
         Returns (final_state, obs_acc, reward[T, B], done[T, B]).
@@ -331,11 +302,10 @@ class TetrisVectorEnv:
         """
         cfg = self.config
 
-        fn = self._rollout_jit.get((with_obs, acc_mode, fused_acc))
+        fn = self._rollout_jit.get((with_obs, acc_mode))
         if fn is None:
             fn = jax.jit(build_rollout(cfg, self.batch_size,
                                        self.observation_space.shape, with_obs,
-                                       acc_mode=acc_mode,
-                                       fused_acc=fused_acc))
-            self._rollout_jit[(with_obs, acc_mode, fused_acc)] = fn
+                                       acc_mode=acc_mode))
+            self._rollout_jit[(with_obs, acc_mode)] = fn
         return fn(state, jnp.asarray(actions))

@@ -4,7 +4,7 @@ Mirrors the reference ``TetrisEnv`` surface exactly (tetris_env.py:338-467):
 4-tuple ``step`` -> (obs, reward, done, info), ``reset(return_info=False)``,
 ``render(mode='human'|'rgb_array')`` (pygame window at 512px / 8fps cap, or a
 (160,160,3) array), ``close()``, and the same constructor kwargs — but backed by
-the batched TPU engine at B=1 with numpy I/O, so a user of the reference can
+the batched JAX engine at B=1 with numpy I/O, so a user of the reference can
 switch imports and keep their agent loop unchanged.
 
 Differences (documented, not silent):
@@ -113,7 +113,7 @@ class _EngineView:
 
 
 class TetrisEnv:
-    """Drop-in, old-gym-API SimpleTetris backed by the TPU-native engine."""
+    """Drop-in, old-gym-API SimpleTetris backed by the batched JAX engine."""
 
     metadata = {"render.modes": ["human", "rgb_array"], "render_fps": 8}
 

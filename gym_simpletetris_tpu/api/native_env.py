@@ -4,7 +4,7 @@ Same old-gym-API surface as the reference ``TetrisEnv`` (tetris_env.py:338-467)
 and as ``api/gym_compat.TetrisEnv``, but the transition runs in
 ``native/oracle.cc`` (~4.6M engine-steps/s vs the reference's ~25k) and
 observations are rendered with the pure-numpy host raster — the right backend
-for laptop debugging, CI, or light single-env workloads where a TPU dispatch
+for laptop debugging, CI, or light single-env workloads where a device dispatch
 round-trip (~tens of ms) would dominate.
 
 Width is not limited to the packed engine's 24 columns here — the C++ engine is

@@ -87,14 +87,14 @@ def make_gymnasium_env(render_mode=None, **kwargs):
 def make_gymnasium_vector_env(num_envs: int, backend: str = "tpu",
                               seed: int = 0, **kwargs):
     """A ``gymnasium.vector.VectorEnv`` (v1 next-step-autoreset API) over the
-    batched TPU engine or the host C++ engine — see api/gymnasium_vector.py."""
+    batched JAX engine or the host C++ engine — see api/gymnasium_vector.py."""
     from .gymnasium_vector import make_gymnasium_vector_env as _make
     return _make(num_envs, backend=backend, seed=seed, **kwargs)
 
 
 def register_gymnasium(env_id: str = "SimpleTetris-v0"):
     """Register with gymnasium (if installed) so ``gymnasium.make(env_id)``
-    returns a new-API env backed by the TPU engine."""
+    returns a new-API env backed by the JAX engine."""
     import gymnasium
     gymnasium.register(
         id=env_id,
@@ -105,7 +105,7 @@ def register_gym(env_id: str = "SimpleTetris-v0") -> bool:
     """Register with *legacy* gym when importable, mirroring the reference's
     only integration point (``gym.register(id='SimpleTetris-v0', ...)``,
     gym_simpletetris/__init__.py:3-6) so ``gym.make("SimpleTetris-v0")``
-    under old gym resolves to the TPU-backed shim. Returns True iff
+    under old gym resolves to the JAX-backed shim. Returns True iff
     registered. Old gym is bit-rotted on modern numpy, so failures are
     swallowed (the package must import fine without gym)."""
     try:

@@ -10,13 +10,12 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from ..core.config import EnvConfig
+from ..core.pytree import pytree_dataclass
 from .env import TetrisVectorEnv
 
 
-@struct.dataclass
+@pytree_dataclass
 class FrameStackState:
     env_state: object
     frames: jnp.ndarray   # [B, *obs, K]
@@ -49,7 +48,7 @@ class FrameStack:
         return frames, FrameStackState(state, frames), reward, done, info
 
 
-@struct.dataclass
+@pytree_dataclass
 class EpisodeStatsState:
     env_state: object
     ep_return: jnp.ndarray     # float32[B] running return

@@ -23,6 +23,7 @@ OBS_TYPES = ("ram", "grayscale", "rgb")
 XSHIFT = 4
 MAX_WIDTH_1W = 32 - XSHIFT - 4
 MAX_WIDTH = 1024          # sanity bound only (board memory, raster geometry)
+RASTER_IMPLS = ("sep", "sepb", "bcast", "matmul", "gather")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,20 +53,14 @@ class EnvConfig:
     penalise_holes_increase: bool = False
     lock_delay: int = 0
     step_reset: bool = False
-    # --- new, TPU-framework-only knobs ---
+    # --- vectorization knobs (not in the reference) ---
     auto_reset: bool = False
-    raster_impl: str = "auto"    # "auto" | "sep" (separable MXU, fastest) |
-                                 # "bcast" (pure elementwise) | "matmul" |
-                                 # "gather" | "pallas" (fused kernel); all
-                                 # pixel-exact. auto = sep, the fastest
-                                 # measured in-scan on v5e @B=4096 — see
-                                 # BENCH_LOCAL.md round-2 sweep
+    raster_impl: str = "auto"    # "auto" | "sep" (two separable matmuls) |
+                                 # "sepb" | "bcast" (pure elementwise) |
+                                 # "matmul" | "gather"; all pixel-exact.
+                                 # auto = sep (resolved_raster_impl)
     obs_dtype: str = "float32"   # "float32" (reference parity, :400) | "uint8"
-                                 # (native palette, 4x less HBM traffic)
-    step_impl: str = "xla"       # "xla" | "pallas" (reference fused-transition
-                                 # kernel, DEMOTED round 3: ties-or-loses vs
-                                 # XLA in-scan, width <= 24 only; requires
-                                 # batch % 128 == 0 on real TPU)
+                                 # (native palette, 4x fewer bytes)
 
     def __post_init__(self):
         if not (2 <= self.width <= MAX_WIDTH):
@@ -74,21 +69,12 @@ class EnvConfig:
                 f"{MAX_WIDTH}")
         if self.height < 2:
             raise ValueError(f"height={self.height} must be >= 2")
-        if self.width > MAX_WIDTH_1W and (
-                self.step_impl == "pallas" or self.raster_impl == "pallas"):
-            raise ValueError(
-                f"width={self.width} > {MAX_WIDTH_1W} uses multi-word packed "
-                f"rows; the pallas step/raster kernels cover the single-word "
-                f"fast path only — use the XLA impls")
         if self.obs_type not in OBS_TYPES:
             raise ValueError(f"obs_type={self.obs_type!r} not in {OBS_TYPES}")
-        if self.raster_impl not in ("auto", "matmul", "gather", "bcast", "sep",
-                                    "sepb", "pallas"):
+        if self.raster_impl not in ("auto",) + RASTER_IMPLS:
             raise ValueError(f"raster_impl={self.raster_impl!r}")
         if self.obs_dtype not in ("float32", "uint8"):
             raise ValueError(f"obs_dtype={self.obs_dtype!r}")
-        if self.step_impl not in ("xla", "pallas"):
-            raise ValueError(f"step_impl={self.step_impl!r}")
 
     # -- derived, static helpers ------------------------------------------------
     @property
@@ -99,11 +85,9 @@ class EnvConfig:
 
     @property
     def resolved_raster_impl(self) -> str:
-        """Resolve raster_impl="auto" to the fastest measured in-scan kernel on
-        v5e @B=4096 (BENCH_LOCAL.md round-2 obs sweep): the separable
-        two-matmul MXU raster ("sep", ops/raster.py) — 31M env-steps/s vs 22M
-        broadcast / 17M one-big-matmul / 11M gather for the canonical uint8
-        storage observation."""
+        """Resolve raster_impl="auto" to the separable two-matmul raster
+        ("sep", ops/raster.py). Which variant is fastest on a given device is
+        a measurement that bench.py's --impl sweep makes."""
         if self.raster_impl != "auto":
             return self.raster_impl
         return "sep"

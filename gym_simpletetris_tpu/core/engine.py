@@ -1,13 +1,13 @@
 """Pure, jittable, batched Tetris transition engine (batch-minor layout).
 
-This is a ground-up TPU redesign of the reference engine
-(``/root/reference/gym_simpletetris/envs/tetris_env.py:125-335``), not a
-translation. TPU-shaping decisions (measured on v5e):
+This is a ground-up array-program redesign of the reference engine
+(``gym_simpletetris/envs/tetris_env.py:125-335``), not a translation. Design
+decisions:
 
 - **Batch-minor layout**: every per-row array is ``[H, B]`` (board rows,
-  collision profiles, piece masks, shape counts), so the minor/lane dimension is
-  the env batch (a multiple of 128), not the tiny H/W dimension that XLA would
-  pad to 128 lanes (a 6.4x bandwidth tax for H=20).
+  collision profiles, piece masks, shape counts), so the innermost dimension
+  is the large env batch, not the tiny H/W dimension: every elementwise op
+  runs over long contiguous vectors.
 - **Bit-packed rows**: ``uint32[H, B]``, column ``x`` at bit ``x + XSHIFT``.
   Collision is AND, a full row is a compare, holes are popcount of a prefix-OR.
   Boards wider than 24 columns (the reference has no width limit,
@@ -18,9 +18,8 @@ translation. TPU-shaping decisions (measured on v5e):
   funnel shift, ``piece_masks``). NW == 1 keeps the flat ``[H, B]`` layout.
 - **No gathers, no scatters, no sorts.** Per-env row lookups are one-hot
   compare+reduce contractions; the per-(piece,rot) mask table lookup is a tiny
-  one-hot matmul; line compaction is a compare-reduce permutation (vmapped
-  ``dynamic_slice`` measured 4.1 ms/step and ``argsort`` 1.0 ms/step at B=4096
-  on v5e — both catastrophic; these formulations are ~micro-seconds).
+  one-hot matmul; line compaction is a compare-reduce permutation. Every op
+  of the step is elementwise or a small static contraction over the batch.
 - **No data-dependent control flow**: candidates are evaluated branchlessly and
   selected; ``hard_drop`` (a Python ``while True`` loop in the reference,
   tetris_env.py:54-59) is an argmin over a dense collide-at-every-height

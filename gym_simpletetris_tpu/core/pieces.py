@@ -7,7 +7,7 @@ rotates by mapping ``(i, j) -> (-j, i)`` (clockwise, ``rotated(cclk=True)``, use
 ``rotate_right`` at ``tetris_env.py:67-69``) or ``(i, j) -> (j, -i)`` (counter-clockwise,
 ``rotate_left`` at ``tetris_env.py:62-64``).
 
-TPU-native redesign: rotation state is an integer ``rot in [0, 4)`` counting clockwise
+Redesign: rotation state is an integer ``rot in [0, 4)`` counting clockwise
 applications, and every ``(piece, rot)`` pair is pre-expanded at import time into
 constant numpy tables that the jitted engine consumes as gather/shift operands:
 

@@ -3,27 +3,27 @@
 The reference keeps all game state as mutable attributes on ``TetrisEngine``
 (``tetris_env.py:126-181``): a float board indexed ``board[x, y]``, the active
 piece as a mutable offset list + float anchor, and an assortment of counters.
-Here the whole engine state is one immutable ``flax.struct`` pytree of batched
-arrays, so it can be jitted over, vmapped, donated, sharded over a device mesh,
-and checkpointed with orbax as-is.
+Here the whole engine state is one immutable pytree dataclass of batched
+arrays (``core/pytree.py``), so it can be jitted over, vmapped, donated,
+sharded over a device mesh, and checkpointed with orbax as-is.
 
 Board representation: **bit-packed rows in batch-minor layout** — ``uint32[H, B]``
-with column ``x`` at bit ``x + XSHIFT``. Batch-minor puts the large batch
-dimension on the TPU lane axis (multiples of 128) instead of the tiny H axis
-(which XLA would pad from 20 to 128 lanes — a measured 6.4x bandwidth tax on
-every elementwise op), and bit-packing makes collision an AND, line-clear
-detection a row compare, and hole counting a popcount over a prefix-OR.
+with column ``x`` at bit ``x + XSHIFT``. Batch-minor keeps the large batch
+dimension innermost, so every elementwise op over the state runs over long
+contiguous vectors instead of the tiny H axis, and bit-packing makes collision
+an AND, line-clear detection a row compare, and hole counting a popcount over
+a prefix-OR.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 
 from .config import EnvConfig
+from .pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class EnvState:
     """One array per reference attribute; B is the env batch (minor axis).
 

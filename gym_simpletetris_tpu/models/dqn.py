@@ -1,8 +1,8 @@
-"""Q-networks for SimpleTetris observations (flax.linen).
+"""Q-networks for SimpleTetris observations (plain JAX, ``models/nn.py``).
 
 The reference ships no model code at all (SURVEY.md §2.6) — its README implies
 external DQN agents trained on the 84x84 observations. This module provides the
-framework's bundled model family, sized for TPU:
+framework's bundled model family:
 
 - ``NatureDQN``: the classic Atari conv stack for 84x84 grayscale/rgb frames
   (with optional frame stacking on the channel axis), bfloat16 compute,
@@ -15,11 +15,11 @@ framework's bundled model family, sized for TPU:
   (train/dqn.py, ``DQNConfig.distributional``) owns the support and the
   projected cross-entropy loss. Composes with dueling (value/advantage
   decomposition per atom, mean-advantage identifiability constraint).
-- ``NoisyDense``: factorized-Gaussian noisy linear layer (Fortunato et al.
-  2018). ``noisy=True`` on either trunk swaps every fully-connected layer in
-  the value pathway for it; exploration then comes from parameter noise
-  (resampled via the ``"noise"`` rng stream per apply) instead of
-  epsilon-greedy. Applying without a ``"noise"`` rng is the deterministic
+- ``NoisyDense`` (models/nn.py): factorized-Gaussian noisy linear layer
+  (Fortunato et al. 2018). ``noisy=True`` on either trunk swaps every
+  fully-connected layer in the value pathway for it; exploration then comes
+  from parameter noise (resampled via the ``"noise"`` rng per apply) instead
+  of epsilon-greedy. Applying without a ``"noise"`` rng is the deterministic
   (mu-only) evaluation net.
 
 Together these make the bundled family Rainbow-complete (Hessel et al. 2018):
@@ -27,82 +27,45 @@ double DQN + PER + n-step + dueling + C51 + noisy nets, each independently
 switchable in ``DQNConfig``.
 
 TP note: the dense layers carry nearly all parameters; ``train/dqn.py`` shards
-them over the mesh's model axis when requested (pjit handles the collectives).
+them over the mesh's model axis when requested (jit handles the collectives).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from ..core.engine import NUM_ACTIONS
+from .nn import Conv, Dense, Module, NoisyDense, Scope
+
+__all__ = ["NoisyDense", "DuelingHead", "C51Head", "NatureDQN", "RamDQN",
+           "build_q_network"]
 
 
-class NoisyDense(nn.Module):
-    """Factorized-Gaussian noisy linear layer (Fortunato et al. 2018 §3.1).
-
-    ``y = (W_mu + W_sigma * (f(eps_in) f(eps_out)^T)) x + b_mu + b_sigma *
-    f(eps_out)`` with ``f(e) = sign(e) sqrt(|e|)``; mu ~ U(+-1/sqrt(in)),
-    sigma = sigma0/sqrt(in). Noise is drawn from the module's ``"noise"`` rng
-    stream each apply; applying **without** that stream yields the
-    deterministic mu-only layer (the evaluation-time policy net).
-    """
-    features: int
-    sigma0: float = 0.5
-    dtype: jnp.dtype = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, x):
-        in_f = x.shape[-1]
-        bound = 1.0 / float(in_f) ** 0.5   # python math: shape is static
-        mu_init = nn.initializers.uniform(scale=2 * bound)
-        # flax's uniform() samples [0, scale); shift to (-bound, bound)
-        k_mu = self.param("kernel_mu",
-                          lambda k, s: mu_init(k, s) - bound,
-                          (in_f, self.features))
-        b_mu = self.param("bias_mu",
-                          lambda k, s: mu_init(k, s) - bound,
-                          (self.features,))
-        sig_init = nn.initializers.constant(self.sigma0 / float(in_f) ** 0.5)
-        k_sig = self.param("kernel_sigma", sig_init, (in_f, self.features))
-        b_sig = self.param("bias_sigma", sig_init, (self.features,))
-        if self.has_rng("noise"):
-            ki, ko = jax.random.split(self.make_rng("noise"))
-            f = lambda e: jnp.sign(e) * jnp.sqrt(jnp.abs(e))  # noqa: E731
-            e_in = f(jax.random.normal(ki, (in_f, 1)))
-            e_out = f(jax.random.normal(ko, (1, self.features)))
-            w = k_mu + k_sig * (e_in * e_out)
-            b = b_mu + b_sig * e_out[0]
-        else:
-            w, b = k_mu, b_mu
-        return x.astype(self.dtype) @ w.astype(self.dtype) + b.astype(
-            self.dtype)
-
-
-def _dense(noisy: bool, features: int, dtype, name: str):
+def _dense(noisy: bool, features: int, dtype) -> Module:
     """The value pathway's linear layer: noisy or plain."""
-    if noisy:
-        return NoisyDense(features, dtype=dtype, name=name)
-    return nn.Dense(features, dtype=dtype, name=name)
+    return NoisyDense(features, dtype=dtype) if noisy else Dense(features, dtype)
 
 
-class DuelingHead(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class DuelingHead(Module):
     """Q(s,a) = V(s) + A(s,a) - mean_a A(s,a)."""
     num_actions: int = NUM_ACTIONS
     noisy: bool = False
     dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x):
-        v = _dense(self.noisy, 1, self.dtype, "value")(x)
-        a = _dense(self.noisy, self.num_actions, self.dtype, "advantage")(x)
+    def __call__(self, s: Scope, x):
+        v = _dense(self.noisy, 1, self.dtype)(s.child("value"), x)
+        a = _dense(self.noisy, self.num_actions, self.dtype)(
+            s.child("advantage"), x)
         return v + a - a.mean(axis=-1, keepdims=True)
 
 
-class C51Head(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class C51Head(Module):
     """Categorical return-distribution logits [B, A, num_atoms].
 
     ``dueling=True`` decomposes per atom: logits = V(s) + A(s,a) - mean_a A
@@ -115,26 +78,40 @@ class C51Head(nn.Module):
     noisy: bool = False
     dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x):
+    def __call__(self, s: Scope, x):
         a, z = self.num_actions, self.num_atoms
         if self.dueling:
-            v = _dense(self.noisy, z, self.dtype, "value")(x)
-            adv = _dense(self.noisy, a * z, self.dtype, "advantage")(x)
+            v = _dense(self.noisy, z, self.dtype)(s.child("value"), x)
+            adv = _dense(self.noisy, a * z, self.dtype)(s.child("advantage"), x)
             adv = adv.reshape(adv.shape[:-1] + (a, z))
             logits = v[..., None, :] + adv - adv.mean(axis=-2, keepdims=True)
         else:
-            logits = _dense(self.noisy, a * z, self.dtype, "logits")(x)
+            logits = _dense(self.noisy, a * z, self.dtype)(s.child("logits"), x)
             logits = logits.reshape(logits.shape[:-1] + (a, z))
         return logits
 
 
-class NatureDQN(nn.Module):
-    """Mnih et al. conv trunk for 84x84 inputs, TPU-sized (bf16 compute).
+def _q_head(net, s: Scope, x):
+    """The head shared by both trunks: C51 logits, dueling Q or plain Q."""
+    if net.num_atoms > 0:
+        q = C51Head(net.num_actions, net.num_atoms, net.dueling, net.noisy,
+                    dtype=net.dtype)(s.child("C51Head_0"), x)
+    elif net.dueling:
+        q = DuelingHead(net.num_actions, net.noisy, dtype=net.dtype)(
+            s.child("DuelingHead_0"), x)
+    else:
+        q = _dense(net.noisy, net.num_actions, net.dtype)(s.child("q"), x)
+    return q.astype(jnp.float32)
 
-    Input: [B, 84, 84, C] float32 (C = channels x stacked frames). Pixel values
-    are the raw reference palette {0, 128, 190}; normalization happens here
-    (scale 1/255) so the env can stay in its exact-parity integer palette.
+
+@dataclasses.dataclass(frozen=True)
+class NatureDQN(Module):
+    """Mnih et al. conv trunk for 84x84 inputs (bf16 compute).
+
+    Input: [B, 84, 84, C] float32 or uint8 (C = channels x stacked frames).
+    Pixel values are the raw reference palette {0, 128, 190}; normalization
+    happens here (scale 1/255) so the env can stay in its exact-parity integer
+    palette.
     """
     num_actions: int = NUM_ACTIONS
     dueling: bool = False
@@ -144,35 +121,22 @@ class NatureDQN(nn.Module):
                          # as in Rainbow)
     dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x):
+    def __call__(self, s: Scope, x):
         if x.ndim == 3:       # [B, 84, 84] grayscale without extend_dims
             x = x[..., None]
         x = x.astype(self.dtype) / 255.0
         w = self.width_mult
-        x = nn.Conv(32 * w, (8, 8), strides=(4, 4), padding="VALID",
-                    dtype=self.dtype, name="conv1")(x)
-        x = nn.relu(x)
-        x = nn.Conv(64 * w, (4, 4), strides=(2, 2), padding="VALID",
-                    dtype=self.dtype, name="conv2")(x)
-        x = nn.relu(x)
-        x = nn.Conv(64 * w, (3, 3), strides=(1, 1), padding="VALID",
-                    dtype=self.dtype, name="conv3")(x)
-        x = nn.relu(x)
+        for i, (f, k, st) in enumerate(
+                [(32 * w, 8, 4), (64 * w, 4, 2), (64 * w, 3, 1)]):
+            x = jax.nn.relu(Conv(f, k, st, self.dtype)(s.child(f"conv{i+1}"), x))
         x = x.reshape((x.shape[0], -1))
-        x = _dense(self.noisy, 512 * w, self.dtype, "dense")(x)
-        x = nn.relu(x)
-        if self.num_atoms > 0:
-            q = C51Head(self.num_actions, self.num_atoms, self.dueling,
-                        self.noisy, dtype=self.dtype)(x)
-        elif self.dueling:
-            q = DuelingHead(self.num_actions, self.noisy, dtype=self.dtype)(x)
-        else:
-            q = _dense(self.noisy, self.num_actions, self.dtype, "q")(x)
-        return q.astype(jnp.float32)
+        x = jax.nn.relu(_dense(self.noisy, 512 * w, self.dtype)(
+            s.child("dense"), x))
+        return _q_head(self, s, x)
 
 
-class RamDQN(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class RamDQN(Module):
     """MLP Q-network for the (W, H) ram observation (0/1 board)."""
     num_actions: int = NUM_ACTIONS
     hidden: Sequence[int] = (512, 256)
@@ -181,25 +145,17 @@ class RamDQN(nn.Module):
     noisy: bool = False  # NoisyNet fully-connected layers (all of them here)
     dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x):
+    def __call__(self, s: Scope, x):
         x = x.reshape((x.shape[0], -1)).astype(self.dtype)
         for i, h in enumerate(self.hidden):
-            x = _dense(self.noisy, h, self.dtype, f"dense{i}")(x)
-            x = nn.relu(x)
-        if self.num_atoms > 0:
-            q = C51Head(self.num_actions, self.num_atoms, self.dueling,
-                        self.noisy, dtype=self.dtype)(x)
-        elif self.dueling:
-            q = DuelingHead(self.num_actions, self.noisy, dtype=self.dtype)(x)
-        else:
-            q = _dense(self.noisy, self.num_actions, self.dtype, "q")(x)
-        return q.astype(jnp.float32)
+            x = jax.nn.relu(_dense(self.noisy, h, self.dtype)(
+                s.child(f"dense{i}"), x))
+        return _q_head(self, s, x)
 
 
 def build_q_network(obs_type: str, obs_shape, dueling: bool = False,
                     width_mult: int = 1, num_atoms: int = 0,
-                    noisy: bool = False) -> nn.Module:
+                    noisy: bool = False) -> Module:
     """Pick the model family for an observation space shape.
 
     ``num_atoms > 0`` selects the distributional (C51) head: the network

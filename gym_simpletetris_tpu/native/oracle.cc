@@ -4,7 +4,7 @@
 //
 // Purpose in this framework:
 //   1. Mass parity fuzzing. The Python reference steps at ~25k steps/s; this
-//      engine steps at millions/s, so the JAX/TPU engine can be fuzzed against
+//      engine steps at millions/s, so the JAX engine can be fuzzed against
 //      a semantically independent oracle over orders of magnitude more
 //      (config, action, horizon) space (tests/test_native_oracle.py). It is
 //      itself cross-validated step-by-step against the in-place-loaded Python

@@ -7,8 +7,8 @@ arithmetic over ``(d0, d1, size)``, so here it is precomputed **once per config 
 the host** into static lookup structures, and the per-step device work is either:
 
 - ``matmul``: one ``[B, d0*d1] @ [d0*d1, size*size]`` bf16 matmul against a
-  constant 0/1 pixel-membership matrix (runs on the MXU; exact, since all values
-  are small integers), or
+  constant 0/1 pixel-membership matrix (exact, since all values are small
+  integers), or
 - ``gather``: one static-index gather per pixel.
 
 Pixel semantics replicated exactly (verified pixel-for-pixel against the
@@ -105,7 +105,7 @@ def _matmul_operands(d0: int, d1: int, size: int):
 def rasterize_matmul(cells: jnp.ndarray, d0: int, d1: int, size: int) -> jnp.ndarray:
     """cells: [B, d0, d1] (0/1, any numeric dtype) -> uint8 [B, size, size].
 
-    MXU path: shade delta = (190-128) * (cells @ A). bf16 is exact here (values
+    One matmul: shade delta = (190-128) * (cells @ A). bf16 is exact here (values
     are 0/1 with one term per pixel; 62*1+128=190 < 256 is exactly representable).
     """
     base, a = _matmul_operands(d0, d1, size)
@@ -128,8 +128,7 @@ def rasterize_bcast(cells: jnp.ndarray, d0: int, d1: int, size: int) -> jnp.ndar
     broadcast * tile-mask -> reshape -> pad -> affine — **no dot, no gather**,
     so XLA fuses the entire chain (from packed board rows through to the
     consumer) into one elementwise kernel. Unlike the matmul path there is no
-    materialized [B, size*size] f32 dot output, which is what capped the
-    image-observation HBM traffic (see BENCH_LOCAL.md round-2 sweep).
+    materialized [B, size*size] f32 dot output.
     """
     gap, block, inner0, inner1, pad0, pad1 = raster_geometry(d0, d1, size)
     bg = block + gap
@@ -181,12 +180,11 @@ def _sep_operands(d0: int, d1: int, size: int):
 
 
 def rasterize_sep(cells: jnp.ndarray, d0: int, d1: int, size: int) -> jnp.ndarray:
-    """cells: [B, d0, d1] (0/1) -> uint8 [B, size, size], separable MXU path.
+    """cells: [B, d0, d1] (0/1) -> uint8 [B, size, size], separable matmuls.
 
     The pixel->cell map factorizes per axis, so the block expansion is two
     rank-reducing matmuls over tiny constant operands (``_sep_operands``) that
-    also carry the shade arithmetic — the fastest measured image path on v5e:
-    the expansion rides the MXU and the VPU does exactly one fused pass
+    also carry the shade arithmetic, followed by one fused elementwise pass
     (bf16->u8 convert + consumer). Unlike the single big matmul
     (``rasterize_matmul``: a [d0*d1, size*size] operand and an f32 dot output)
     nothing large is read per step. Exact: all pixel values are integers
@@ -234,11 +232,11 @@ def rasterize_sepb(cells: jnp.ndarray, d0: int, d1: int, size: int) -> jnp.ndarr
     The row expansion of the separable raster is a 0/1 selection — every pixel
     row of cell row i is the SAME vector ``t_i`` (and every gap row the same
     constant) — so the second matmul of ``rasterize_sep`` is replaced by pure
-    broadcasts: one tiny MXU dot ``[B, d0, d1+1] @ [d1+1, size]`` produces the
+    broadcasts: one tiny dot ``[B, d0, d1+1] @ [d1+1, size]`` produces the
     d0 distinct image rows, and broadcast/concat/pad assemble the image. This
-    removes the [B, size, size] bf16 dot *output* of the sep path (too large
-    for VMEM at B=4096 — a full HBM write+read per step); only [B, d0, size]
-    leaves the MXU. Exact: all values are integers <= 190, exact in bf16.
+    removes the [B, size, size] bf16 dot *output* of the sep path; only
+    [B, d0, size] comes out of a matmul. Exact: all values are integers <= 190,
+    exact in bf16.
     """
     gap, block, inner0, inner1, pad0, pad1 = raster_geometry(d0, d1, size)
     op, gap_row = _sepb_operands(d0, d1, size)

@@ -2,9 +2,9 @@
 
 Validates the interconnect assumptions the learner's gradient all-reduce rides
 on (SURVEY.md §5: the distributed backend is the JAX runtime itself — XLA
-collectives over ICI/DCN, no NCCL/MPI layer). Runs on any mesh, including the
+collectives, which XLA:GPU hands to NCCL). Runs on any mesh, including the
 fake CPU mesh (mechanism test; bandwidth numbers only mean something on real
-multi-chip hardware).
+multi-card hardware).
 
     python -m gym_simpletetris_tpu.parallel.collective_bench --mb 64
 """

@@ -1,12 +1,12 @@
 """Device-mesh parallelism: shard the env batch over chips and hosts.
 
 The reference is strictly single-process Python with no parallelism of any kind
-(SURVEY.md §2.6); this module is the TPU-native scaling layer mandated for the
-new framework: a ``jax.sharding.Mesh`` over all devices, the env batch sharded
-along a ``"data"`` axis via ``NamedSharding``/``shard_map``, and host-side
-metrics reduced with ICI collectives (``psum``) instead of any NCCL/MPI-style
-backend. Multi-host launches use ``jax.distributed.initialize`` (multi-
-controller): each host drives its local shard of the global batch.
+(SURVEY.md §2.6); this module is the framework's scaling layer: a
+``jax.sharding.Mesh`` over all devices, the env batch sharded along a
+``"data"`` axis via ``NamedSharding``/``shard_map``, and metrics reduced with
+XLA collectives (``psum``; NCCL over NVLink on GPUs). Multi-host launches use
+``jax.distributed.initialize`` (multi-controller): each host drives its local
+shard of the global batch.
 
 The engine itself is purely elementwise over the batch, so sharding is
 embarrassingly parallel — the value of this layer is (a) correct placement
@@ -49,7 +49,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 def make_data_mesh(devices=None) -> Mesh:
     """1-D mesh over all (or the given) devices: batch dim -> DATA_AXIS.
-    On a multi-host pod this spans hosts; DCN/ICI routing is XLA's job."""
+    Over several hosts it spans them; routing collectives is XLA's job."""
     devices = np.asarray(devices if devices is not None else jax.devices())
     return Mesh(devices.reshape(-1), (DATA_AXIS,))
 
@@ -190,7 +190,7 @@ _aggregate_by_mesh = {}
 def global_metrics(state: EnvState, mesh: Mesh = None) -> dict:
     """Cross-host/chip aggregate episode metrics via one jitted reduction.
     With ``mesh``, the outputs are pinned replicated on it (the reductions
-    then run as ICI/DCN collectives over the sharded state); without, jit
+    then run as collectives over the sharded state); without, jit
     infers the same from the state's shardings. One executable per mesh."""
     if mesh is not None:
         fn = _aggregate_by_mesh.get(mesh)

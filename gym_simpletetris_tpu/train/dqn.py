@@ -5,7 +5,7 @@ replay ring, TD learning, target sync — lives on device inside one jitted
 ``train_step`` (scannable into multi-step chunks). Host sync happens only at
 logging boundaries. Under a data mesh the env batch, replay and learner batch
 shard along ``parallel.mesh.DATA_AXIS``; with replicated params jit inserts the
-gradient all-reduce (ICI psum) automatically.
+gradient all-reduce (psum) automatically.
 
 Double DQN + optional dueling heads + optional distributional (C51) targets;
 epsilon is linearly annealed on device.
@@ -14,9 +14,9 @@ Replay layouts (replay.py): the legacy ring stores matured stacked
 transitions (obs+next per slot, rolling n-step window — fastest for tiny
 ram observations); ``frame_ring=True`` stores per-step rows with sample-time
 n-step folding and no window — with ``ring_stacks=True`` (the "obs ring",
-the flagship image layout: +35% at learn_every=4, BENCH_LOCAL round 4) each
-row is the whole observation stack, with ``ring_stacks=False`` a single raw
-frame (2k-x leaner memory, gather-heavier sampling).
+the flagship image layout) each row is the whole observation stack, with
+``ring_stacks=False`` a single raw frame (2k-x leaner memory, gather-heavier
+sampling).
 """
 
 from __future__ import annotations
@@ -28,9 +28,9 @@ from typing import Any, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
 from ..core.config import EnvConfig
+from ..core.pytree import pytree_dataclass
 from ..core.engine import NUM_ACTIONS
 from ..api.env import build_observation, reset_fn, step_fn
 from ..models.dqn import build_q_network
@@ -65,7 +65,8 @@ class DQNConfig:
     n_step: int = 1        # >1 inserts n-step returns (rolling window, exact
                            # truncation at episode bounds; TD target becomes
                            # reward_n + gamma^n * Q(s_{t+n}))
-    prioritized: bool = False  # PER via on-device Gumbel-top-k (replay.py)
+    prioritized: bool = False  # PER: two-level inverse-CDF sampling
+                               # proportional to priority (replay.py)
     per_alpha: float = 0.6
     per_beta0: float = 0.4
     per_beta_steps: int = 100_000
@@ -83,13 +84,10 @@ class DQNConfig:
                           # action-selection forward (the target net keeps
                           # its own): XLA then materializes the online noisy
                           # weights once instead of twice per learner step —
-                          # the generation is batch-independent flat cost
-                          # (~0.08 ms/forward, BENCH_LOCAL round 4).
+                          # the generation is a batch-independent flat cost.
                           # Algorithm delta: a* is picked by the same
                           # perturbed net being trained that step (several
-                          # public Rainbow implementations do exactly this);
-                          # A/B'd at the flagship point in BENCH_LOCAL
-                          # round 5 before being offered.
+                          # public Rainbow implementations do exactly this).
     learn_every: int = 1  # actor steps per learner update (Rainbow uses 4;
                           # with a batched actor each "actor step" is already
                           # num_envs transitions, so the default stays 1 —
@@ -99,17 +97,15 @@ class DQNConfig:
                           # stacks / n-step returns at consume time
                           # (replay.FrameRingState): deletes the per-step
                           # stacked-obs shift, the n-step window and the 2k x
-                          # frame duplication in the ring — measured the
-                          # dominant actor cost at frame_stack=4 (BENCH_LOCAL
-                          # round 4). Same transition semantics (tested
-                          # equivalent in tests/test_frame_ring.py).
+                          # frame duplication in the ring. Same transition
+                          # semantics (tested equivalent in
+                          # tests/test_frame_ring.py).
     ring_stacks: bool = False  # with frame_ring: store the WHOLE stack per
                           # slot (the "obs ring") instead of single frames —
                           # k x the frame memory (still no next_obs buffer,
                           # no window: 2x leaner than legacy) but sampling
                           # reads one contiguous row per stack instead of k
-                          # row-gathers; measured the fastest flagship
-                          # layout (TPU gathers price per row).
+                          # row-gathers.
 
     sample_slots: bool = False  # learner batches are WHOLE replay slot rows
                           # (learn_batch // num_envs of them) instead of
@@ -118,10 +114,7 @@ class DQNConfig:
                           # twin of PPO's shuffle_block), so mixing stays
                           # random-age x all-envs while the obs reads become
                           # a few contiguous row-gathers and the PER
-                          # write-back a row write — the scattered
-                          # formulations measured 0.63 + 0.24 ms of the
-                          # flagship's 1.32 ms learner step (BENCH_LOCAL
-                          # round 5). With prioritized replay the
+                          # write-back a row write. With prioritized replay the
                           # distribution coarsens to slot-level PER
                           # (stratified: slots ~ summed priority, uniform
                           # within the row, slot-level importance weights).
@@ -147,7 +140,7 @@ class DQNConfig:
                                  "the gathers it removes)")
 
 
-@struct.dataclass
+@pytree_dataclass
 class DQNState:
     params: Any
     target_params: Any
@@ -335,13 +328,11 @@ def make_train(cfg: DQNConfig, mesh=None, model_axis: str = "model"):
         return (window["obs"][0], window["action"][0],
                 ret, next_obs_t, discount, done_any)
 
-    # NOTE (round 5, measured and rejected): fusing the two ONLINE forwards
-    # (loss obs + double-DQN selection) into one 2B-batch apply via concat
-    # LOST ~60k sps at the flagship le=4 point (375k -> 316k, .jobs/49) —
-    # the [2B, 84, 84, 4] concat materializes a copy that breaks the
-    # gather->conv producer fusion, outweighing the MXU-fill gain. The two
-    # forwards stay separate; ``noisy_shared_selection`` shares only the
-    # noise KEY (XLA CSEs the weight generation, +2%, .jobs/43).
+    # The two ONLINE forwards (loss obs + double-DQN selection) stay
+    # separate applies: concatenating them into one 2B-batch apply would
+    # materialize a [2B, 84, 84, 4] copy between the replay gather and the
+    # conv stem. ``noisy_shared_selection`` shares only the noise KEY (XLA
+    # then computes the noisy weights once).
 
     def td_loss(params, target_params, batch, weights, nkey):
         k1, k2, k3 = jax.random.split(nkey, 3)
@@ -466,13 +457,12 @@ def make_train(cfg: DQNConfig, mesh=None, model_axis: str = "model"):
 
     def _learner_half(state: DQNState, k_sample, k_nlearn):
         """One TD step once the buffer has warmed up. The warm-up gate is a
-        ``lax.cond`` (round 5): before learn_starts the whole learner —
-        sampling, forwards, backward, optimizer — is skipped at runtime, and
-        after warm-up the update writes params/opt_state/replay directly
-        instead of through the per-leaf masked ``jnp.where`` passes the
-        round-4 code paid every learner step (~44 MB of param/Adam state x 3
-        extra read/write passes; the target sync is likewise a nested cond,
-        costing its 15 MB copy only on the 1-in-target_update_period step)."""
+        ``lax.cond``: before learn_starts the whole learner — sampling,
+        forwards, backward, optimizer — is skipped at runtime, and after
+        warm-up the update writes params/opt_state/replay directly instead of
+        through per-leaf masked ``jnp.where`` passes over the param/Adam
+        state (the target sync is likewise a nested cond, costing its param
+        copy only on the 1-in-target_update_period step)."""
         can_learn = state.replay.filled >= cfg.learn_starts
         if cfg.frame_ring:
             # a frame-ring slot is sampleable only once its k-1 predecessors
@@ -551,13 +541,8 @@ def make_train(cfg: DQNConfig, mesh=None, model_axis: str = "model"):
         them. The scan body is one actor step followed by the learner half
         under ``lax.cond`` — a single flat scan whose compiled footprint is
         learn_every-independent, with skipped learner updates never executed
-        at runtime. (Two earlier structures both failed on v5e: statically
-        unrolling le-1 actor steps VMEM-spilled at le=8 — 60k vs 234k
-        env-steps/s — and a nested actor-only lax.scan paid a fixed
-        carry-boundary cost per outer iteration that only amortized at
-        le >= 16; see BENCH_LOCAL.md round-3 sweep.) ``unroll`` forwards to
-        lax.scan (unroll=4 measured +4% at 2.5x compile time on v5e —
-        opt-in, unlike the env rollout's default)."""
+        at runtime. ``unroll`` forwards to lax.scan (opt-in: it multiplies
+        compile time, unlike the env rollout's default)."""
         le = cfg.learn_every
         if n % le:
             raise ValueError(f"chunk length {n} must be a multiple of "

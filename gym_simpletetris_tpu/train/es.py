@@ -2,11 +2,11 @@
 
 The reference has no training infrastructure (SURVEY.md §3.5); this is the
 framework's third trainer family next to DQN/Rainbow and PPO, and the most
-TPU-shaped of the three: no backprop, no replay — one generation is a single
-jitted program that evaluates ``pop_size`` antithetic parameter perturbations
-by rolling each through its own slice of a ``pop_size * envs_per_member``
-vectorized env batch (the 144M-steps/s engine makes fitness evaluation nearly
-free), then updates the mean parameters with the rank-shaped score gradient
+accelerator-shaped of the three: no backprop, no replay — one generation is a
+single jitted program that evaluates ``pop_size`` antithetic parameter
+perturbations by rolling each through its own slice of a
+``pop_size * envs_per_member`` vectorized env batch, then updates the mean
+parameters with the rank-shaped score gradient
 
     g = 1/(pop * sigma) * sum_i shape(F_i) * eps_i .
 
@@ -15,7 +15,7 @@ fetch. Under a mesh the env batch and the population axis shard over ``data``
 (the perturbation matrix is drawn replicated and sliced, so the sharded run
 computes the same generation as the unsharded one up to reduction order).
 
-Design notes (TPU):
+Design notes:
 - Antithetic pairs (+eps, -eps) halve the RNG/bandwidth cost and reduce
   variance; ``pop_size`` must be even.
 - Centered-rank fitness shaping (argsort-of-argsort) runs once per
@@ -33,10 +33,10 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax.flatten_util import ravel_pytree
 
 from ..core.config import EnvConfig
+from ..core.pytree import pytree_dataclass
 from ..api.env import reset_fn, step_fn
 from ..models.dqn import build_q_network
 
@@ -61,7 +61,7 @@ class ESConfig:
             raise ValueError("ES training requires env auto_reset=True")
 
 
-@struct.dataclass
+@pytree_dataclass
 class ESState:
     theta: jnp.ndarray        # float32[dim] — flat mean parameters
     key: jnp.ndarray

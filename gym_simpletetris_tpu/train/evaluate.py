@@ -46,7 +46,7 @@ def evaluate_policy(env: TetrisVectorEnv, action_fn, steps: int, seed: int) -> d
 
 
 def _unwrap_params(tree):
-    """Accept a checkpoint holding either a full train state or bare flax
+    """Accept a checkpoint holding either a full train state or bare
     params and return the ``{"params": layers}`` variables dict apply()
     expects."""
     params = tree["params"] if isinstance(tree, dict) and "params" in tree \
@@ -160,4 +160,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     main()

@@ -16,9 +16,9 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
 from ..core.config import EnvConfig
+from ..core.pytree import pytree_dataclass
 from ..api.env import reset_fn, step_fn
 from ..models.actor_critic import ActorCritic
 
@@ -44,9 +44,7 @@ class PPOConfig:
     # rollout is [T, B]-major, so a block of K <= num_envs rows is K
     # *different envs at the same timestep* — block-shuffled minibatches
     # still mix random timesteps x random env groups, while the shuffle
-    # gather drops from n rows to n/K rows (TPU gathers price per row: the
-    # row-exact shuffle measured 22% of ram-PPO throughput, BENCH_LOCAL
-    # round 4).
+    # gather drops from n rows to n/K rows of K times the width.
 
     def __post_init__(self):
         if (self.num_envs * self.rollout_len) % self.num_minibatches:
@@ -64,7 +62,7 @@ class PPOConfig:
             raise ValueError("shuffle_block must divide num_envs")
 
 
-@struct.dataclass
+@pytree_dataclass
 class PPOState:
     params: Any
     opt_state: Any
@@ -112,10 +110,9 @@ def make_ppo(cfg: PPOConfig, mesh=None, model_axis: str = "model"):
                 jnp.arange(obs.shape[0]), action]
             nobs, nstate, reward, done, info = step_fn(ecfg, env_state, action)
             # store obs flattened uint8 (exact: env values fit the palette):
-            # TPU tiles the trailing two axes of stacked buffers to (8,128)
-            # multiples, so [T, B, 10, 20] f32 would pad ~20x and the epoch
-            # shuffle would gather the padded monster — flat [T, B, F] u8
-            # pads <2% at 1/4 the bytes (same fix as the DQN replay ring)
+            # one contiguous F-byte row per transition, 1/4 the bytes of f32,
+            # so the epoch shuffle gathers whole rows (same layout as the
+            # DQN replay ring)
             out = dict(obs=obs.reshape(obs.shape[0], -1).astype(jnp.uint8),
                        action=action, logp=logp, value=value,
                        reward=reward * cfg.reward_scale,

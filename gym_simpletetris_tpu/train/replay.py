@@ -13,33 +13,31 @@ dynamic index is on the unsharded slot axis and the update spans each shard's
 own envs, so no collective is generated. (A flat [capacity] ring with the
 *sharded* axis dynamically sliced would instead land each step's block on one
 shard and force an all-to-all per insert; an env-major [B, S] ring would make
-the insert a B-way strided write — measured 5x slower on v5e.) Flat
+the insert a B-way strided write.) Flat
 transition index ``i = slot * B + env`` (row-major flatten) is what sampling
 returns.
 
 Observations are stored as uint8 (the env palette fits: ram is 0/1, images are
 {0,128,190}) — 4x less HBM than float32; the learner casts on the way in. They
 are stored **flattened** ([S, B, prod(obs_shape)]) and reshaped at the sample
-boundary: TPU tiles the last two axes of every buffer to (8,128)-multiples, so
-a [..., 10, 20] ram observation would pad ~20x (and [..., 84, 84] ~1.6x) —
-flattening makes the pad <2% and was the difference between the ring insert
-running in-place and it copying the buffer every step.
+boundary: one contiguous row per transition, whatever the observation's
+shape, so an insert is one dense row block and a sample one row gather.
 
 Transitions carry a ``discount`` = gamma^m * (1 - done) so the TD target is
 always ``reward + discount * Q(next_obs)`` — one formula for 1-step and n-step
 returns (train/dqn.py builds n-step rewards in a rolling window).
 
-Prioritized replay (Schaul et al. 2015) is TPU-reshaped: instead of a
-host-side sum-tree, sampling-proportional-to-priority uses **two-level
+Prioritized replay (Schaul et al. 2015) is reshaped for the device: instead
+of a host-side sum-tree, sampling-proportional-to-priority uses **two-level
 inverse-CDF sampling** over the [S, B] priority grid — level 1 picks the slot
 row (one cumsum over S), level 2 the env within it (one cumsum over B). This
 is the sum-tree's arithmetic flattened to two dense vector levels: exact
 proportional sampling *with replacement* (the distribution Schaul's eq. 1
 defines, so the eq. 2 importance weights are exact), with no full-capacity
-``top_k`` (the round-1 Gumbel-top-k cost 44% of training throughput at 262k
-capacity, and sampled without replacement, making the beta correction
-approximate). Priority writes are a single scatter in the learner (the
-no-scatter rule is for the env step path, core/engine.py, not the learner).
+``top_k`` (a Gumbel-top-k draw samples without replacement, which makes the
+beta correction approximate). Priority writes are a single scatter in the
+learner (the no-scatter rule is for the env step path, core/engine.py, not
+the learner).
 """
 
 from __future__ import annotations
@@ -48,10 +46,11 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..core.pytree import pytree_dataclass, static_field
 
 
-@struct.dataclass
+@pytree_dataclass
 class ReplayState:
     obs: jnp.ndarray       # uint8[S, B, prod(obs_shape)] (flattened)
     next_obs: jnp.ndarray  # uint8[S, B, prod(obs_shape)]
@@ -63,7 +62,7 @@ class ReplayState:
     max_p: jnp.ndarray     # float32[] — running max priority (new inserts)
     ptr: jnp.ndarray       # int32[] — next insert slot (row)
     filled_slots: jnp.ndarray  # int32[] — number of valid slot rows
-    obs_shape: Tuple[int, ...] = struct.field(pytree_node=False, default=())
+    obs_shape: Tuple[int, ...] = static_field(default=())
 
     @property
     def width(self) -> int:
@@ -300,13 +299,10 @@ def replay_update_priority(rs, idx, td_abs, alpha: float,
 # The stacked-storage ring above keeps every frame ~2k times (k stacked copies
 # in ``obs`` + k in ``next_obs``), and the trainer's rolling n-step window
 # re-copies the stacked observation every actor step. At the flagship
-# operating point (256 envs, 84x84x4 stacks) those copies dominate the whole
-# actor: a round-4 ablation measured the actor at 0.596 ms/env-step with
-# frame_stack=4 vs 0.247 at frame_stack=1, with the network forward itself
-# only 0.13 ms — ~0.35 ms/step of pure observation plumbing (~50 MB/step at
-# an effective ~150 GB/s).
+# operating point (256 envs, 84x84x4 stacks) those copies are tens of MB per
+# actor step of pure observation plumbing.
 #
-# The frame ring is the classic Atari-replay fix, TPU-shaped: one slot per
+# The frame ring is the classic Atari-replay fix: one slot per
 # actor step holding the SINGLE raw frame f_t plus (a_t, r_t, d_t, priority);
 # observation stacks are rebuilt at consume time by k gathers with
 # episode-boundary clamping (positions before the episode start repeat the
@@ -321,7 +317,7 @@ def replay_update_priority(rs, idx, td_abs, alpha: float,
 # (age 0 = newest written slot). PER masks the priority grid to that window.
 
 
-@struct.dataclass
+@pytree_dataclass
 class FrameRingState:
     frame: jnp.ndarray     # uint8[S, B, prod(base_shape)] — raw frame f_t
     action: jnp.ndarray    # int8[S, B]    — a_t
@@ -332,19 +328,17 @@ class FrameRingState:
     ptr: jnp.ndarray       # int32[] — slot being written (frame first,
     #                         action/reward/done complete it and advance)
     filled_slots: jnp.ndarray  # int32[]
-    base_shape: Tuple[int, ...] = struct.field(pytree_node=False, default=())
-    frame_stack: int = struct.field(pytree_node=False, default=1)
-    n_step: int = struct.field(pytree_node=False, default=1)
-    gamma: float = struct.field(pytree_node=False, default=0.99)
+    base_shape: Tuple[int, ...] = static_field(default=())
+    frame_stack: int = static_field(default=1)
+    n_step: int = static_field(default=1)
+    gamma: float = static_field(default=0.99)
     # stacked=True: each slot row holds the WHOLE observation stack the
     # actor saw at that step (the "obs ring"): k x the frame memory of the
     # single-frame layout, but sampling reads ONE contiguous row per stack
-    # (obs at s, next at s+n) instead of k row-gathers each — measured the
-    # faster flagship layout because TPU gathers price per row
-    # (BENCH_LOCAL round 4). Single-frame (stacked=False) stays the
-    # memory-lean layout. Both fold n-step returns at sample time and
-    # need no rolling window.
-    stacked: bool = struct.field(pytree_node=False, default=False)
+    # (obs at s, next at s+n) instead of k row-gathers each. Single-frame
+    # (stacked=False) stays the memory-lean layout. Both fold n-step returns
+    # at sample time and need no rolling window.
+    stacked: bool = static_field(default=False)
 
     @property
     def width(self) -> int:
@@ -436,8 +430,7 @@ def _run_length_grid(rs: FrameRingState) -> jnp.ndarray:
     """int32[S, B]: for each slot, how many steps back the episode extends
     (capped at frame_stack-1) — the stack-clamp offset cap. Computed as
     k-1 rolled elementwise passes over the done grid (the [S, B] grid is
-    tiny; per-sample done GATHERS were measured to dominate the frame-ring
-    learner cost, BENCH_LOCAL round 4)."""
+    tiny, and it replaces k-1 per-sample done gathers)."""
     k = rs.frame_stack
     run = jnp.zeros(rs.done.shape, jnp.int32)
     ok = jnp.ones(rs.done.shape, jnp.bool_)
@@ -475,11 +468,8 @@ def _ring_stack(rs: FrameRingState, slot, env, run_flat=None):
     if run_flat is None:
         run_flat = _run_length_grid(rs).reshape(S * B)
     run = jnp.take(run_flat, slot * B + env, axis=0)  # one gather, not k-1
-    # merged gather (round 5): ONE take of k*N rows instead of k takes of N
-    # rows — TPU gathers carry a per-gather launch/row-pricing cost, and
-    # merging lifted the single-frame flagship le=4 point 221k -> 276k
-    # env-steps/s (+25%, bitwise-verified vs the k-gather formulation,
-    # .jobs/41). Offsets clamp at the episode start exactly as before.
+    # merged gather: ONE take of k*N rows instead of k takes of N rows (one
+    # gather op instead of k). Offsets clamp at the episode start.
     offs = [jnp.minimum(jnp.int32(j), run) for j in range(k)]   # newest j=0
     idx = jnp.stack([((slot - o) % S) * B + env for o in offs])  # [k, N]
     out = jnp.take(flat, idx.reshape(-1), axis=0)
@@ -495,7 +485,7 @@ def frame_ring_stack_newest(rs: FrameRingState) -> jnp.ndarray:
     Gather-free: every env reads the SAME k slots (ptr, ptr-1, ...), so the
     stack is k ``dynamic_index_in_dim`` row reads with the episode-boundary
     clamp as cascaded per-env selects — contiguous [B, F] traffic instead of
-    a B-row gather (TPU gathers price per row; see BENCH_LOCAL round 4)."""
+    a B-row gather."""
     k, S, B = rs.frame_stack, rs.slots, rs.width
     prev = jax.lax.dynamic_index_in_dim(rs.frame, rs.ptr % S, 0,
                                         keepdims=False)          # [B, F]
@@ -522,9 +512,8 @@ def _frame_ring_batch(rs: FrameRingState, slot, env) -> dict:
     All scalar quantities (n-step return, discount, done-any, clamp run
     length) are PRE-FOLDED on the whole [S, B] grid with rolled elementwise
     passes (a few hundred KB) and fetched with ONE gather each — the naive
-    per-sample formulation cost ~2n+2(k-1)+1 scalar gathers per batch and
-    TPU gathers price per row, which is what regressed the first frame-ring
-    cut at le=4 (BENCH_LOCAL round 4)."""
+    per-sample formulation would cost ~2n+2(k-1)+1 scalar gathers per
+    batch)."""
     S, B, n = rs.slots, rs.width, rs.n_step
     fidx = slot * B + env
 
@@ -542,8 +531,7 @@ def _frame_ring_batch(rs: FrameRingState, slot, env) -> dict:
                 else _run_length_grid(rs).reshape(S * B))
     return {
         # uint8 (see _gather_batch.take_obs): the consumer's cast fuses into
-        # the conv stem; a f32 copy here cost ~0.2 ms/learner step at the
-        # flagship point (BENCH_LOCAL round 5)
+        # the conv stem; a f32 copy here would be 4x the bytes
         "obs": _ring_stack(rs, slot, env, run_flat),
         "next_obs": _ring_stack(rs, (slot + n) % S, env, run_flat),
         "action": jnp.take(rs.action.reshape(S * B), fidx,
@@ -581,9 +569,7 @@ def _frame_ring_slot_batch(rs: FrameRingState, slot) -> dict:
     *different envs at the same ring age* (envs are independent), so a batch
     of whole rows still mixes random ages — while the obs reads become nb
     row-gathers of [B, F] contiguous bytes instead of ``batch`` scattered
-    row-gathers (TPU gathers price per ROW: the scattered formulation
-    measured 0.63 ms of the flagship's 1.32 ms learner step, job 39 round
-    5). Priority write-back becomes a row write as well.
+    row-gathers. Priority write-back becomes a row write as well.
     """
     if not (rs.stacked or rs.frame_stack == 1):
         raise ValueError("slot-row sampling needs ring_stacks=True or "
@@ -594,14 +580,12 @@ def _frame_ring_slot_batch(rs: FrameRingState, slot) -> dict:
     shape = rs.base_shape + ((k,) if rs.stacked and k > 1 else ())
 
     def rows(buf, s):
-        # flat gather with slot-contiguous indices. NOT jnp.take of rows on
-        # axis 0 (lowered to a full-ring read: 14.5 ms, job 45) and NOT
-        # dynamic_index_in_dim slices (standalone-fast but they broke the
-        # ring's in-place scan carry — the per-actor-step insert degraded
-        # and le=64 fell 689k -> 202k, job 47): the flat-index formulation
-        # is what the per-transition sampler already uses against the same
-        # in-place-updated carry, with the indices now runs of B
-        # consecutive rows
+        # flat gather with slot-contiguous indices: the formulation the
+        # per-transition sampler uses against the same in-place-updated
+        # ring carry, with the indices now runs of B consecutive rows.
+        # (A row-axis jnp.take of the ring can lower to a full-ring read, and
+        # dynamic_index_in_dim reads inside the learner cond can break the
+        # ring's in-place scan carry.)
         f2 = buf.reshape((S * B,) + buf.shape[2:])
         fidx = (s[:, None] * B + jnp.arange(B)[None, :]).reshape(-1)
         return jnp.take(f2, fidx, axis=0)             # [nb * B, ...]

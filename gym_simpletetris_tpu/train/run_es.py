@@ -72,4 +72,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     main()

@@ -42,9 +42,8 @@ def parse_args(argv=None):
     p.add_argument("--entropy-coef", type=float, default=0.01)
     p.add_argument("--shuffle-block", type=int, default=1,
                    help="epoch-shuffle granularity: 1 = exact row "
-                        "permutation; 64 recommended for vectorized runs "
-                        "(+74%% ram throughput; blocks are same-timestep "
-                        "env groups — BENCH_LOCAL round 4)")
+                        "permutation; K > 1 permutes blocks of K "
+                        "same-timestep envs (fewer, larger gather rows)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-jsonl", default=None)
     p.add_argument("--ckpt", default=None)
@@ -112,4 +111,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     main()

@@ -11,7 +11,7 @@ happens to equal ``num_envs``:
   e.g. Adam's mu/nu): tensor parallelism — every ``kernel`` leaf shards its
   output (last) axis over the model axis when divisible; biases and scalars
   replicate. Dense layers thus compute ``x @ W[:, shard]`` locally and jit
-  inserts the activation all-gather / gradient reduce-scatter over ICI.
+  inserts the activation all-gather / gradient reduce-scatter.
 - ``replay``: the [S, B, ...] slot-major ring shards its env axis over
   ``data`` — each data shard owns the transitions its envs produced, and the
   per-step insert (a dynamic_update_slice on the unsharded slot axis) stays
@@ -104,5 +104,5 @@ def train_state_sharding(dqn_cfg, mesh: Mesh, abstract_state,
     return jax.tree_util.tree_map_with_path(assign, abstract_state)
 
 
-# back-compat alias (round-2 API name)
+# back-compat alias (earlier API name)
 dqn_state_sharding = train_state_sharding

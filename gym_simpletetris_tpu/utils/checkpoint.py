@@ -54,3 +54,37 @@ def restore_checkpoint(path: str, target: Optional[Any] = None) -> Any:
     return _ckptr().restore(
         path, args=ocp.args.PyTreeRestore(item=target,
                                           restore_args=restore_args))
+
+
+def save_params_npz(path: str, params: dict) -> None:
+    """Write a nested dict of arrays (network variables) to one ``.npz``,
+    one entry per leaf keyed by its "/"-joined path. Needs numpy only."""
+    import numpy as np
+
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(prefix + (k,), v)
+        else:
+            flat["/".join(prefix)] = np.asarray(node)
+
+    walk((), params)
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+
+
+def load_params_npz(path: str) -> dict:
+    """Inverse of :func:`save_params_npz`: the nested dict of numpy arrays."""
+    import numpy as np
+
+    out: dict = {}
+    with np.load(path) as z:
+        for name in z.files:
+            *parents, leaf = name.split("/")
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[name]
+    return out

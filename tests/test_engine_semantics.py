@@ -221,9 +221,12 @@ def test_config_validation():
         EnvConfig(width=2000)
     with pytest.raises(ValueError):
         EnvConfig(obs_type="nope")
-    # wide boards use multi-word rows; the pallas kernels cover 1-word only
     with pytest.raises(ValueError):
-        EnvConfig(width=30, step_impl="pallas")
+        EnvConfig(raster_impl="nope")
+    with pytest.raises(ValueError):
+        EnvConfig(obs_dtype="float16")
+    # wide boards use multi-word rows under every raster
+    assert EnvConfig(width=30, raster_impl="sep").num_words == 2
     assert EnvConfig(width=24).num_words == 1
     assert EnvConfig(width=30).num_words == 2
     assert EnvConfig(width=56).num_words == 2

@@ -1,5 +1,5 @@
 """Tests: training CLI, video export, scaling bench, headless human render,
-uint8 obs mode, pallas step through the env API."""
+uint8 obs mode."""
 
 import json
 import os
@@ -61,35 +61,6 @@ def test_uint8_obs_mode():
     assert obs.dtype == jnp.uint8
     assert set(np.unique(np.asarray(obs))) <= {0, 128, 190}
     assert env.observation_space.dtype == np.uint8
-
-
-def test_pallas_step_via_env_api():
-    """step_impl='pallas' (interpret on CPU backend) == 'xla' through the
-    public env API."""
-    import gym_simpletetris_tpu.ops.pallas_step as PS
-    orig = PS._build_step
-    PS._build_step.cache_clear()
-
-    def interp_build(cfg, batch, bt, interpret):
-        return orig.__wrapped__(cfg, batch, bt, True)
-    PS._build_step = interp_build
-    try:
-        cfgP = EnvConfig(auto_reset=True, step_impl="pallas")
-        cfgX = EnvConfig(auto_reset=True, step_impl="xla")
-        envP = TetrisVectorEnv(cfgP, 4)
-        envX = TetrisVectorEnv(cfgX, 4)
-        key = jax.random.PRNGKey(5)
-        obsP, sP = envP.reset(key)
-        obsX, sX = envX.reset(key)
-        rng = np.random.RandomState(0)
-        for t in range(25):
-            a = jnp.asarray(rng.randint(0, 7, 4))
-            obsP, sP, rP, dP, _ = envP.step(sP, a)
-            obsX, sX, rX, dX, _ = envX.step(sX, a)
-            np.testing.assert_array_equal(np.asarray(obsP), np.asarray(obsX))
-            np.testing.assert_array_equal(np.asarray(rP), np.asarray(rX))
-    finally:
-        PS._build_step = orig
 
 
 def test_evaluate_cli():

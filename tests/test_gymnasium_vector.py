@@ -1,5 +1,5 @@
 """gymnasium.vector.VectorEnv adapters: v1 next-step-autoreset convention on
-both backends (jitted TPU engine and host C++ engine)."""
+both backends (jitted JAX engine and host C++ engine)."""
 
 from __future__ import annotations
 

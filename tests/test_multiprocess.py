@@ -1,6 +1,6 @@
 """REAL multi-process (multi-controller) execution: 2 OS processes x 4 fake
 CPU devices each, connected via jax.distributed (Gloo collectives) — the same
-code path a multi-host TPU pod uses over DCN, minus the hardware
+code path a multi-host GPU cluster uses, minus the hardware
 (SURVEY.md §2.6 / §4.4; parallel/mesh.init_distributed).
 
 Each worker builds the global 8-device data mesh, resets a ShardedTetrisEnv
@@ -163,8 +163,8 @@ def test_two_process_sharded_rollout_bitwise(tmp_path):
 
 
 def test_four_process_sharded_rollout_bitwise(tmp_path):
-    """4 controllers x 2 fake devices each (round-3 VERDICT item 3: broaden
-    controller-count evidence beyond the single 2-process shape). Same global
+    """4 controllers x 2 fake devices each (controller-count evidence beyond
+    the single 2-process shape). Same global
     8-device mesh and program; the deadline is generous because four
     concurrent uncached controllers timeslice this host's 2 vCPUs."""
     script = tmp_path / "worker.py"
@@ -281,7 +281,7 @@ def test_two_process_dqn_train_step(tmp_path, layout):
 
 
 def test_four_process_dqn_train_step(tmp_path):
-    """Round-4 verdict item 5a: the full actor-learner under FOUR controller
+    """The full actor-learner under FOUR controller
     processes x 2 fake devices each (the rollout twin above already covers
     4 controllers; this is the first 4-controller TRAIN evidence). Runs the
     flagship obs-ring replay layout; all four controllers' final params must

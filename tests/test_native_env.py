@@ -87,7 +87,7 @@ def test_engine_attribute_view():
 
 
 def test_wide_board_beyond_packed_limit():
-    """The native env supports widths the packed TPU engine caps at 24."""
+    """The native env supports widths past the packed engine's one-word 24."""
     env = NativeTetrisEnv(width=40, height=8, obs_type="ram", seed=2)
     obs = env.reset()
     assert obs.shape == (40, 8)

@@ -1,11 +1,11 @@
 """CPU-side performance canaries: compiled-cost regression guards.
 
-Real throughput floors need the TPU (tests/test_perf_floor.py, driver bench);
-these canaries instead pin the *compiled cost profile* of the hot paths via
+Throughput needs the card (bench.py); these canaries instead pin the
+*compiled cost profile* of the hot paths via
 ``compiled.cost_analysis()`` on the CPU backend, so CI catches gross
 regressions — a materialized float32 image (4x bytes), a materialized rgb
-triple (3x), a replay ring that copies its buffers every insert (the round-2
-bug class: 10x+) — without any hardware. Budgets are ~2x the measured values
+triple (3x), a replay ring that copies its buffers every insert (10x+) —
+without any hardware. Budgets are ~2x the measured values
 (see git history for calibration), loose enough to survive compiler-version
 drift, tight enough that the known failure modes blow through them.
 """
@@ -81,9 +81,9 @@ def test_train_chunk_bytes_budget():
 
 
 def test_obs_ring_chunk_cheaper_than_legacy_at_frame_stack():
-    """The round-4 obs-ring layout exists because the legacy layout's
-    per-step stacked-obs plumbing (shift + window push + obs/next insert)
-    dominated the flagship actor (BENCH_LOCAL round 4). Pin the structural
+    """The obs-ring layout exists because the legacy layout's per-step
+    stacked-obs plumbing (shift + window push + obs/next insert) moves tens
+    of MB per flagship actor step. Pin the structural
     advantage: with frame stacking + n-step, the obs-ring train chunk must
     touch well under the legacy chunk's bytes."""
     from gym_simpletetris_tpu.train.dqn import DQNConfig, make_train
@@ -101,42 +101,3 @@ def test_obs_ring_chunk_cheaper_than_legacy_at_frame_stack():
     legacy = chunk_bytes()
     obs_ring = chunk_bytes(frame_ring=True, ring_stacks=True)
     assert obs_ring < 0.75 * legacy, (obs_ring, legacy)
-
-
-def test_bench_floors_below_recorded_values():
-    """Tie bench.py's hard-coded FLOORS to the checked-in BENCH_r0N.json
-    driver artifacts (ADVICE round 4): every floor must sit below the best
-    value ever recorded for its metric, so a floor edited out of sync with
-    the records fails here instead of silently loosening (or falsely
-    tripping) the driver's regressed verdict. Metrics whose first record
-    lands in a future artifact are skipped until it exists."""
-    import glob
-    import json
-    import os
-    import sys
-
-    root = os.path.join(os.path.dirname(__file__), "..")
-    sys.path.insert(0, root)
-    try:
-        from bench import FLOORS
-    finally:
-        sys.path.remove(root)
-    best = {}
-    for path in sorted(glob.glob(os.path.join(root, "BENCH_r0*.json"))):
-        with open(path) as f:
-            doc = json.load(f)   # driver wrapper: metric lines live in the
-        for line in str(doc.get("tail", "")).splitlines():   # captured tail
-            line = line.strip()
-            if not line.startswith('{"metric"'):
-                continue
-            rec = json.loads(line)
-            m = rec.get("metric")
-            if m in FLOORS:
-                best[m] = max(best.get(m, 0.0), float(rec["value"]))
-    assert best, "no BENCH_r0N.json artifacts found"
-    for metric, floor in FLOORS.items():
-        if metric not in best:
-            continue  # first record for this metric not yet driver-captured
-        assert floor < best[metric], (
-            f"{metric}: floor {floor} >= best recorded {best[metric]} — "
-            f"update FLOORS from the BENCH artifacts")
